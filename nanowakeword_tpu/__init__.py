@@ -1,4 +1,4 @@
-"""nanowakeword-tpu: a TPU-native wake-word detection framework.
+"""nanowakeword-tpu: a JAX wake-word detection framework.
 
 Public API parity with the reference package
 (`/root/reference/nanowakeword/__init__.py:1-5`): `NanoInterpreter`, `VAD`,

@@ -71,7 +71,7 @@ def _merge_config_with_cli_args(config_stages: dict, args) -> dict:
 def _build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="nanowakeword-tpu",
-        description="nanowakeword-tpu - TPU-native wake word detection "
+        description="nanowakeword-tpu - JAX wake word detection "
                     "engine.",
         formatter_class=argparse.RawTextHelpFormatter,
         epilog=(
@@ -294,11 +294,15 @@ def main():
         _run_info(args.info)
         return
     if args.bench:
+        # the benchmark runs in a child that owns the device; this process
+        # has not touched it, and exits with the child's code
         import subprocess
-        subprocess.run([sys.executable,
-                        os.path.join(os.path.dirname(__file__), os.pardir,
-                                     "bench.py")], check=False)
-        return
+        sys.exit(subprocess.run([sys.executable,
+                                 os.path.join(os.path.dirname(__file__),
+                                              os.pardir, "bench.py")
+                                 ]).returncode)
+    from nanowakeword_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     if args.model:
         _run_server(args)
         return

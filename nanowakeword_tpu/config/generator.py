@@ -7,9 +7,9 @@ and batch sizes from dataset statistics (H_pos/H_neg/H_noise/A_noise/N_rir)
 and host/accelerator resources. In the live pipeline it is called with no
 stats (`trainer.py:299-300`), so the hardware-dependent keys dominate.
 
-TPU-native difference: device batch sizing reads the JAX device inventory
-(chip count, HBM where exposed) instead of CUDA VRAM; TPU feature-extraction
-batches default far larger because the mel+encoder path is MXU-bound.
+Device batch sizing reads the JAX device inventory: the device count and
+each device's memory limit (`utils/devices.py`), one rule for every
+platform.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ import math
 import os
 
 import numpy as np
+
+from nanowakeword_tpu.utils.devices import feature_batch_per_device
 
 try:
     import psutil
@@ -31,15 +33,12 @@ def clamp(value, min_val, max_val):
 
 
 def _device_info():
-    """(n_accelerators, is_tpu) without forcing jax init failure."""
-    try:
-        import jax
-        devs = jax.devices()
-        is_tpu = any("tpu" in d.platform.lower() or "TPU" in str(d)
-                     for d in devs)
-        return len(devs), is_tpu
-    except Exception:  # noqa: BLE001
-        return 0, False
+    """(n_devices, memory bytes of the first or None)."""
+    import jax
+
+    from nanowakeword_tpu.utils.devices import device_memory_bytes
+    devs = jax.devices()
+    return len(devs), device_memory_bytes(devs[0])
 
 
 class ConfigGenerator:
@@ -126,18 +125,12 @@ class ConfigGenerator:
         else:
             self.config["augmentation_batch_size"] = 32
 
-        # device feature-extraction batch size: TPU chips chew through the
-        # mel+encoder path; size the per-step batch to the device inventory.
-        n_dev, is_tpu = _device_info()
-        if is_tpu:
-            self.config["feature_batch_size"] = 1024 * max(n_dev, 1)
-            self.config["tts_batch_size"] = 256
-        elif n_dev > 0:
-            self.config["feature_batch_size"] = 256 * n_dev
-            self.config["tts_batch_size"] = 64
-        else:  # pragma: no cover
-            self.config["feature_batch_size"] = 128
-            self.config["tts_batch_size"] = 32
+        # device feature-extraction batch: sized to each device's memory
+        n_dev, mem = _device_info()
+        self.config["feature_batch_size"] = (
+            feature_batch_per_device(mem) * n_dev)
+        self.config["tts_batch_size"] = 256 if (mem or 0) >= 8 * 2**30 \
+            else 64
 
         return self.config
 

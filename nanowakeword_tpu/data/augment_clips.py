@@ -5,7 +5,7 @@ Parity target: `/root/reference/nanowakeword/data/augment_clips.py:81-265`
 `transform_clips.py:91-149`. Same signatures and yield contract:
 batches of int16 audio shaped [B, total_length].
 
-TPU-native structure: the host only decodes/resamples/crops (thread pool —
+Structure: the host only decodes/resamples/crops (thread pool —
 never fork-based multiprocessing, which is unsafe after the JAX runtime is
 live) and stacks fixed-shape arrays; ALL DSP (SNR mix, gain, pitch, RIR,
 volume) runs as one jitted vmapped device computation (ops/augment.py).

@@ -4,7 +4,7 @@ Parity target: `/root/reference/nanowakeword/data/data_sampler.py` —
 `AdaptiveLossAwareDataset` (`:26`), `DynamicClassAwareSampler` (`:122`) and
 `ValidationDataset` (`:238`).
 
-TPU-native design: no torch Dataset/DataLoader. The dataset is a set of
+Design: no torch Dataset/DataLoader. The dataset is a set of
 numpy memmaps concatenated into one global index space; the sampler runs on
 the host with a numpy Generator and assembles whole batches (gathered from
 the memmaps) ready for `jax.device_put`. Hardness scores live in a host-side

@@ -8,7 +8,7 @@ feature frontend that every layer above consumes. Public surface matches:
 970-frame mel buffer, 120-frame feature buffer, 1280-sample chunks —
 `:106-112`).
 
-TPU-native redesign:
+Redesign:
 * mel + embedding are OUR jit-compiled kernels (ops/mel.py, models/
   embedding.py), not downloaded ONNX sessions; no ThreadPools — batching is
   the parallelism.
@@ -90,7 +90,7 @@ def pretrained_encoder_variables():
     path = speech_encoder_asset_path()
     if path is None:
         return None
-    from flax import serialization
+    from nanowakeword_tpu import serialization
     with open(path, "rb") as f:
         payload = serialization.msgpack_restore(f.read())
     arch = infer_encoder_arch(payload)
@@ -114,7 +114,7 @@ class AudioFeatures:
                  sr: int = 16000,
                  ncpu: int = 1,                     # accepted for parity; unused
                  inference_framework: str = "jax",  # parity arg
-                 device: str = "tpu",               # parity arg
+                 device: str = "gpu",               # parity arg
                  compute_dtype=jnp.bfloat16,
                  debug_mode: bool = False,
                  debug_limit: int = 10):
@@ -139,16 +139,8 @@ class AudioFeatures:
     # -- pure compute ---------------------------------------------------------
 
     def _embed_impl(self, audio: jnp.ndarray) -> jnp.ndarray:
-        """[N, samples] audio -> [N, frames, 96]; one fused pass, no windows.
-
-        Bulk (inference) extraction routes mel through the fused Pallas
-        kernel on TPU backends — 1.23x the XLA path on v5e; CPU/GPU and
-        custom compute dtypes use the XLA frame-matrix route."""
-        if self.compute_dtype == jnp.bfloat16:
-            from nanowakeword_tpu.ops.mel_pallas import mel_frontend_fused
-            mel = mel_frontend_fused(audio)
-        else:
-            mel = melops.mel_frontend(audio, compute_dtype=self.compute_dtype)
+        """[N, samples] audio -> [N, frames, 96]; one fused pass, no windows."""
+        mel = melops.mel_frontend(audio, compute_dtype=self.compute_dtype)
         return self.encoder.apply(self.encoder_variables, mel[:, EMB_OFFSET:])
 
     def _stream_step_impl(self, state: StreamState,
@@ -199,8 +191,7 @@ class AudioFeatures:
             x = x[None]
         sharding = self._data_sharding()
         # int16 PCM flows through unconverted: half the host->device bytes
-        # and half the kernel's HBM reads (the fused mel kernel converts in
-        # VMEM; values are bit-identical — int16 -> f32 is exact)
+        # (the mel frontend converts on device; int16 -> f32 is exact)
         in_dtype = np.int16 if x.dtype == np.int16 else np.float32
         outs = []
         for i in range(0, x.shape[0], batch_size):

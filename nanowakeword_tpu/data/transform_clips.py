@@ -6,9 +6,9 @@ from the positive-clip median (`:153-222`), background duplication-rate
 handling (`:379-386`), skip-if-exists semantics (`:249-252`), and the
 preallocated-memmap + trim pipeline (`:305-322`).
 
-TPU-native flow per job: host threads decode audio, the device runs the
+Flow per job: host threads decode audio, the device runs the
 vmapped augmentation chain + mel + embedding encoder as jitted computations
-(big fixed-shape batches on the MXU), and rows stream into the memmap.
+(big fixed-shape batches), and rows stream into the memmap.
 """
 
 from __future__ import annotations

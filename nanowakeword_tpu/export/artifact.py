@@ -28,7 +28,7 @@ from typing import Any, Optional
 
 import jax
 import numpy as np
-from flax import serialization
+from nanowakeword_tpu import serialization
 
 from nanowakeword_tpu.utils.logger import print_error, print_info
 

@@ -24,7 +24,7 @@ models/embedding.py) through the jaxpr exporter:
                                 embedding_model.onnx unit
                                 (`AudioFeatures.py:172-183`).
 
-All three are float32 graphs (ONNX interchange dtype); the live TPU
+All three are float32 graphs (ONNX interchange dtype); the live
 pipeline computes mel in bfloat16, so features agree to bf16 rounding
 (~3e-3 relative) and SCORES through a classifier stay inside the 1e-3
 trace budget — the frontend tests assert both. Verified at export time by

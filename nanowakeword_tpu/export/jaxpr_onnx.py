@@ -775,8 +775,8 @@ def build_onnx_from_fn(fn, input_specs, output_names, name: str, *,
             x = rng.normal(0, input_scale, shape).astype(np.float32)
             feeds[in_name] = x
             args.append(jnp.asarray(x))
-        # the emitted graph is pure float32; on TPU backends jax matmuls
-        # default to one bf16 MXU pass, so the live reference must be
+        # the emitted graph is pure float32; accelerator matmuls default to
+        # reduced precision (bf16 passes or TF32), so the live reference must be
         # forced to f32-true precision for the comparison to mean anything
         with jax.default_matmul_precision("highest"):
             want = fn(*args)

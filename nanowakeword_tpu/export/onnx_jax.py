@@ -1,8 +1,8 @@
-"""ONNX graph -> jittable JAX function (the TPU-native ONNX runtime).
+"""ONNX graph -> jittable JAX function (the JAX ONNX runtime).
 
 The reference serves exported `.onnx` wake-word models through onnxruntime
 CPU sessions (`nanointerpreter.py:873-877`). Here the same files compile
-onto the TPU: the graph is parsed by the bundled protobuf reader
+onto the accelerator: the graph is parsed by the bundled protobuf reader
 (onnx_proto.py) and translated node-by-node into a pure jnp/lax function
 that `jax.jit` fuses like any native model. This gives NanoInterpreter
 first-class `.onnx` loading (interpreter/nanointerpreter.py) with identical
@@ -143,7 +143,7 @@ def _rnn_node(op, x, attrs):
 def _static(v, what):
     if not isinstance(v, np.ndarray):
         raise NotImplementedError(
-            f"{what} must be a graph initializer (static) for the TPU "
+            f"{what} must be a graph initializer (static) for the JAX "
             "ONNX runtime")
     return v
 
@@ -344,7 +344,7 @@ def make_jax_fn(model: Union[str, bytes, P.ParsedModel]):
                 y = Y
             else:
                 raise NotImplementedError(
-                    f"op '{op}' not supported by the TPU ONNX runtime")
+                    f"op '{op}' not supported by the JAX ONNX runtime")
             env[nd.outputs[0]] = y
         return {vi.name: jnp.asarray(env[vi.name]) for vi in g.outputs}
 
@@ -353,7 +353,7 @@ def make_jax_fn(model: Union[str, bytes, P.ParsedModel]):
 
 class OnnxJaxModel:
     """A jit-compiled ONNX model (the onnxruntime InferenceSession
-    analogue, running on the session's JAX backend — TPU when present).
+    analogue, running on the session's JAX backend).
 
     `input_shape`/`output_names` mirror what NanoInterpreter reads off an
     ORT session (reference `nanointerpreter.py:150-168`)."""

@@ -4,7 +4,7 @@ Parity target: `/root/reference/nanowakeword/interpreter/models/_registry.py`
 — lazy attribute access (`models.melspectrogram_onnx`, `:84-114`) resolving
 pretrained assets, downloading on first use (`:34-47`).
 
-TPU-native difference: the mel frontend and speech-embedding encoder are
+Difference from the reference: the mel frontend and speech-embedding encoder are
 *computed* components of this framework (ops/mel.py, models/embedding.py),
 not downloaded graphs — so the registry's job inverts: it materialises and
 caches the framework's own assets (the deterministic encoder initialisation,
@@ -23,7 +23,7 @@ from nanowakeword_tpu.utils.logger import print_info
 DEFAULT_CACHE = os.path.join(os.path.expanduser("~"), ".cache",
                              "nanowakeword_tpu", "models")
 
-# name -> optional remote URL override via env NWW_TPU_<NAME>_URL
+# name -> optional remote URL override via env NWW_<NAME>_URL
 _ASSETS = ("speech_encoder", "vad")
 
 
@@ -32,7 +32,7 @@ class ModelRegistry:
     downloading them on first access."""
 
     def __init__(self, cache_dir: Optional[str] = None):
-        self.cache_dir = cache_dir or os.environ.get("NWW_TPU_CACHE",
+        self.cache_dir = cache_dir or os.environ.get("NWW_CACHE",
                                                      DEFAULT_CACHE)
 
     def _ensure_dir(self, name: str) -> str:
@@ -41,7 +41,7 @@ class ModelRegistry:
         return d
 
     def _maybe_download(self, name: str) -> Optional[str]:
-        url = os.environ.get(f"NWW_TPU_{name.upper()}_URL")
+        url = os.environ.get(f"NWW_{name.upper()}_URL")
         if not url:
             return None
         from nanowakeword_tpu.utils.download_files import download_file
@@ -51,7 +51,7 @@ class ModelRegistry:
     def speech_encoder(self) -> str:
         """Path to the speech-embedding encoder variables (.msgpack).
 
-        Preference order: NWW_TPU_SPEECH_ENCODER_URL download > bundled
+        Preference order: NWW_SPEECH_ENCODER_URL download > bundled
         PRETRAINED asset (shipped with the package, trained by
         train/pretrain_encoder.py) > cached file > freshly materialised
         deterministic (seed-10) initialisation as a last resort.
@@ -66,7 +66,7 @@ class ModelRegistry:
         d = self._ensure_dir("speech_encoder")
         path = os.path.join(d, "speech_encoder.msgpack")
         if not os.path.exists(path):
-            from flax import serialization
+            from nanowakeword_tpu import serialization
             import jax
             import numpy as np
             from nanowakeword_tpu.data.features import \
@@ -80,7 +80,7 @@ class ModelRegistry:
 
     def load_speech_encoder_variables(self):
         """Load the registry's encoder variables as a pytree."""
-        from flax import serialization
+        from nanowakeword_tpu import serialization
         from nanowakeword_tpu.data.features import _default_encoder_variables
         with open(self.speech_encoder, "rb") as f:
             payload = serialization.msgpack_restore(f.read())

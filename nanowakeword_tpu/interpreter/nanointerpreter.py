@@ -7,7 +7,7 @@ verifier, no-local-model), `predict()` (warm-up guards, cascade skip, VAD
 gate, patience/debounce post-filters), `predict_clip()`, `listen()`,
 `reset()`, `detected()`, `stop()`, the score properties and `info`.
 
-TPU-native differences:
+Differences from the reference:
 * models are `.nww` artifacts loaded into jitted Flax applies — no
   onnxruntime; a "session" here is `lambda feats: sigmoid(module.apply(...))`.
 * stateful models thread an explicit carry pytree instead of

@@ -11,7 +11,7 @@ CLI (`:640-755`), with the same wire protocol:
     0xF0 token exchange (server_security)
     response: JSON {"score": <float>}
 
-TPU-native differences:
+Differences from the reference:
 * the hosted model is a `.nww` artifact evaluated by a jitted Flax apply —
   scores for many concurrent clients batch onto the accelerator naturally;
 * "full"-pipeline connections use our jit-compiled AudioFeatures streaming
@@ -78,7 +78,7 @@ class _DynamicBatcher:
     New capability vs. the reference (which scores each client's message in
     its own ONNX call): concurrent score requests arriving within
     `max_wait_ms` coalesce into ONE batched device forward — under load the
-    TPU sees large batches instead of B=1 calls. A classic production
+    device sees large batches instead of B=1 calls. A classic production
     inference-server pattern (dynamic batching).
     """
 
@@ -190,6 +190,8 @@ def serve(model_path: str,
     from nanowakeword_tpu.export.artifact import load_nww
     from nanowakeword_tpu.interpreter.nanointerpreter import (_LocalSession,
                                                               _OnnxSession)
+    from nanowakeword_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     mesh = None
     if data_parallel:

@@ -7,11 +7,9 @@ config-key surface (`model_type`, `layer_size`, `n_blocks`, `embedding_dim`,
 on `[B, T, 96]` feature frames and emitting a `embedding_dim` vector that the
 shared classifier head (heads.py) maps to one logit.
 
-TPU notes:
-* Everything is jit-compiled with static shapes; recurrent nets use
-  `flax.linen.RNN` (a `lax.scan`) — sequences here are short (typically
-  16-45 frames), so scan overhead is negligible and the per-step matmuls
-  batch onto the MXU.
+Notes:
+* Everything is jit-compiled with static shapes; recurrent nets are a
+  `lax.scan` — sequences here are short (typically 16-45 frames).
 * BatchNorm state lives in the `batch_stats` collection; training steps apply
   with `mutable=["batch_stats"]`.
 * Dropout uses the `dropout` PRNG collection and a `deterministic` flag.
@@ -22,7 +20,7 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, Sequence
 
-import flax.linen as nn
+from nanowakeword_tpu import nn
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,7 +7,7 @@ conv net, producing one 96-dim vector per window. The batch path materializes
 every window — a 9.5x data blow-up — and the streaming path re-runs the whole
 window every 80 ms.
 
-TPU-native redesign: the encoder is a **fully-convolutional** stack whose
+Redesign: the encoder is a **fully-convolutional** stack whose
 total time stride is exactly 8 and receptive field exactly 76, with VALID
 padding. Applying it once over the whole mel sequence yields one embedding
 per stride-8 window position — identical, by construction, to windowed
@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import functools
 
-import flax.linen as nn
+from nanowakeword_tpu import nn
 import jax
 import jax.numpy as jnp
 
@@ -52,16 +52,14 @@ class SpeechEmbeddingEncoder(nn.Module):
     Input:  [B, T, 32]  transformed log-mel (T >= 76)
     Output: [B, (T-76)//8 + 1, 96]
 
-    `precision` defaults to HIGH (three-pass bfloat16): XLA's DEFAULT TPU
-    conv precision rounds f32 operands to a single bfloat16 MXU pass whose
-    algorithm choice is shape-dependent, which can break the streaming ==
-    batch guarantee (measured at the ~5e-3 level for some geometries). HIGH
-    recovers ~f32 mantissa coverage — measured worst cross-shape error
-    2.5e-5 between the [B,76,32] streaming window and [B,970,32] full-buffer
-    shapes, 40x inside the 1e-3 score-trace budget — at ~1/6 the MXU cost of
-    HIGHEST (f32 emulation), which this encoder previously defaulted to.
-    Throughput-critical bulk extraction can opt into `precision=None` (one
-    bf16 pass) where 0.5% feature noise is irrelevant; bit-for-bit
+    `precision` defaults to HIGH. DEFAULT precision lets XLA pick a reduced-
+    precision algorithm (one bf16 pass, or TF32 on a GPU) whose choice is
+    shape-dependent, which can break the streaming == batch guarantee: the
+    [B,76,32] streaming window and the [B,970,32] full buffer must agree
+    inside the 1e-3 score-trace budget. HIGH asks for more mantissa than
+    one bf16 pass at a fraction of HIGHEST's cost; what XLA runs for it is
+    backend-specific. Throughput-critical bulk extraction can opt into
+    `precision=None` where 0.5% feature noise is irrelevant; bit-for-bit
     cross-shape reproducibility needs `precision=jax.lax.Precision.HIGHEST`.
     """
 
@@ -91,15 +89,13 @@ class SpeechEmbeddingEncoder(nn.Module):
 
 
 class WideSpeechEmbeddingEncoder(nn.Module):
-    """MXU-aligned encoder variant ("wide128"): same time geometry and
+    """Wide encoder variant ("wide128"): same time geometry and
     [B, T, 32] -> [B, (T-76)//8 + 1, 96] contract as SpeechEmbeddingEncoder,
     but the first conv consumes the WHOLE 32-bin freq axis into 128 channels
     and the rest are pure 1-D temporal convs at 128 channels.
 
-    Why: MXU output lanes come in 128-wide tiles, so the small encoder's
-    32/48/64/96-channel convs pad to 128 lanes and waste 1.3-4x of every
-    pass; at 128 channels each pass is lane-full. Measured on v5e (batch
-    4096x1s, bf16): 0.217 us/clip vs 0.371 for the small geometry — 1.71x —
+    Why: matrix units work in wide tiles, so narrow 32/48/64/96-channel
+    convs leave most of each tile idle; at 128 channels the tiles are full,
     at 2.1x the parameters (0.38M, still tiny).
 
     Time geometry:  k=10/s=2 -> k=8/s=2 -> k=8/s=2 -> k=4/s=1

@@ -1,10 +1,9 @@
 """Scan-lean recurrent layers: input projections hoisted out of the scan.
 
-`flax.linen.RNN` over a GRU/LSTM cell computes the input-side gate
-projections inside every scan step — T sequential small matmuls that are
-dispatch/pipeline-bound on TPU (a [B,192] matmul takes ~the same wall time
-as a [B*T,192] one). These layers compute ALL input projections in one big
-MXU matmul up front; the scan body keeps only the irreducible recurrent
+`nn.RNN` over a GRU/LSTM cell computes the input-side gate projections
+inside every scan step — T sequential small matmuls, each too small to
+fill the device. These layers compute ALL input projections in one big
+matmul up front; the scan body keeps only the irreducible recurrent
 matmul and the gate nonlinearities.
 
 Gate conventions follow the torch nn.GRU / nn.LSTM equations (the zoo's
@@ -13,7 +12,7 @@ parity target), with both input and recurrent biases.
 
 from __future__ import annotations
 
-import flax.linen as nn
+from nanowakeword_tpu import nn
 import jax
 import jax.numpy as jnp
 

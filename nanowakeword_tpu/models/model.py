@@ -8,7 +8,7 @@ the shared classifier head Dense(E -> E/2) -> act -> Dropout -> Dense(-> 1)
 (`model.py:216-221`); (c) provides SWA parameter averaging (`model.py:376-401`)
 and the training-history plot (`model.py:227-361`).
 
-TPU-native differences: parameters are immutable pytrees (params +
+Differences from the reference: parameters are immutable pytrees (params +
 batch_stats collections); "state_dict" operations become pytree maps;
 everything applies under jit with explicit PRNG keys.
 """
@@ -22,7 +22,7 @@ import inspect
 import os
 from typing import Any, Optional
 
-import flax.linen as nn
+from nanowakeword_tpu import nn
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,8 +6,8 @@ floors (`:45-79`), random foreground placement (`:218-231`), Gain p=1.0,
 PitchShift p=0.5 ±2 st, optional ApplyImpulseResponse p=0.5 (`:150-158`),
 peak-normalised random volume in [0.5, 1.0] (`:246-255`), clamp -> int16.
 
-TPU-native redesign: the reference runs torch_audiomentations module-by-module
-on CUDA with host round-trips; here the whole chain is ONE jitted, vmapped
+Design: the reference runs torch_audiomentations module-by-module with
+host round-trips; here the whole chain is ONE jitted, vmapped
 function over the batch with explicit PRNG keys — fixed shapes, no host sync,
 fusible by XLA. RIR is FFT convolution. Pitch shift is resampling-based
 (pitch and tempo move together): unlike a phase vocoder it is fully static-
@@ -52,18 +52,14 @@ def _shift_right(x: jnp.ndarray, offset: jnp.ndarray,
                  block_aligned: bool = False) -> jnp.ndarray:
     """Zero-filled right shift of a 1-D vector by a TRACED offset, exact.
 
-    `jnp.roll` with a traced shift is the single heaviest op in the
-    augmentation chain on TPU (measured 10.0 ms per vmapped 2048x16000
-    batch; a padded `dynamic_slice` lowers no better at 10.5 ms). This
-    two-stage one-hot contraction rides the MXU instead: decompose
-    offset = q*BLK + r, shift whole BLK-sample blocks with a [NB, NB]
-    one-hot dot, then shift the remainder r in-block with two [BLK, BLK]
-    banded one-hot dots against the block rows and their predecessors.
-    BLK=128 keeps the fine stage lane-dense: 4.2 ms on the same probe,
-    2.4x over roll (BLK=32 measures 5.1; a hi/lo bf16-split variant that
-    avoids HIGHEST precision is SLOWER — 4.7 — because of the extra
-    operand passes). HIGHEST-precision dots with one-hot {0,1} operands
-    reproduce the roll path bit-exactly.
+    The shift is a two-stage one-hot contraction instead of a `jnp.roll`
+    with a traced shift: decompose offset = q*BLK + r, shift whole
+    BLK-sample blocks with a [NB, NB] one-hot dot, then shift the
+    remainder r in-block with two [BLK, BLK] banded one-hot dots against
+    the block rows and their predecessors. HIGHEST-precision dots with
+    one-hot {0,1} operands reproduce the roll path bit-exactly. Whether
+    this beats a plain roll or `dynamic_slice` on the current device has
+    not been measured.
 
     With `block_aligned` (static) the caller guarantees offset % 128 == 0
     and the fine stage — two of the three dots — is skipped entirely.
@@ -77,12 +73,10 @@ def _shift_right(x: jnp.ndarray, offset: jnp.ndarray,
     q, r = offset // blk, offset % blk
     blocks = x.reshape(nb, blk)
     ii = jnp.arange(nb)
-    # Per-operand MXU precision: the DATA side gets the exact 3-term bf16
-    # decomposition (HIGHEST); the one-hot side is {0,1}, exact in ONE bf16
-    # term (DEFAULT). Result is bit-identical to HIGHEST-both (each output
-    # is a plain selection of one f32 input, and d1+d2+d3 re-sums exactly
-    # in the f32 accumulator) at 1/3 of the MXU passes: 4.2 -> 2.9 ms on
-    # the 2048 x 16000 mix_snr probe (tools/profile_config3.py).
+    # Per-operand precision: the DATA side is exact (HIGHEST); the one-hot
+    # side is {0,1}, exact at any precision (DEFAULT). Result is
+    # bit-identical to HIGHEST-both: each output is a plain selection of
+    # one f32 input.
     p_data_onehot = (jax.lax.Precision.HIGHEST, jax.lax.Precision.DEFAULT)
     p_onehot_data = (jax.lax.Precision.DEFAULT, jax.lax.Precision.HIGHEST)
     sel = (ii[:, None] - q == ii[None, :]).astype(x.dtype)      # [out, in]
@@ -129,8 +123,8 @@ def mix_snr(fg: jnp.ndarray, bg: jnp.ndarray, offset: jnp.ndarray,
 
 # Span-start block alignment shared by pitch_window and resample_pitch:
 # the window must be a multiple of this and sized for starts aligned DOWN
-# to it, so the two functions must agree (16 measured best; 8 loses on
-# lane-thin operands, 32 wastes up to 31 samples of span).
+# to it, so the two functions must agree (32 would waste up to 31 samples
+# of span).
 PITCH_SPAN_BLK = 16
 
 
@@ -159,29 +153,22 @@ def resample_pitch(x: jnp.ndarray, semitones: jnp.ndarray,
     rate = 2^(semitones/12); output sample i reads position i*rate, so pitch
     up shortens content (past-the-end reads masked to 0).
 
-    TPU formulation — zero element gathers (the TPU's weakest op; a direct
-    `x[floor(i*rate)]` gather measures ~1.4 s per 2048x32000 batch, and even
-    a 32-wide block-row `jnp.take` spends 92 of 148 ms in the gather):
+    Formulated without element gathers:
       1. materialise all blk-aligned `window`-wide source spans as
          overlapping views of the `[n/blk, blk]` reshape (window//blk
          static shifted slices — the mel framing trick);
-      2. select each output frame's span with a one-hot [F, n/blk] MXU
-         matmul;
+      2. select each output frame's span with a one-hot [F, n/blk] matmul;
       3. interpolate inside the span with a linear-B-spline hat weight
-         matrix contracted on the MXU (`einsum('fk,fjk->fj')`).
+         matrix (`einsum('fk,fjk->fj')`).
     Same linear interpolation as the direct gather; the weights round
-    differently (bf16 operand rounding, the precision the MXU applies to
-    f32 operands anyway — ~0.2% FS worst case on white noise) — immaterial
-    under augmentation noise.
+    differently (bf16 operands — ~0.2% FS worst case on white noise) —
+    immaterial under augmentation noise. Whether a plain gather is faster
+    on the current device has not been measured.
 
     `frame` is the output chunk size: smaller chunks need proportionally
     smaller spans, shrinking the [F, frame, window] weight tensor that
     dominates the cost. Block size 16 tightens the span-start alignment
-    waste from 31 to 15 samples, cutting the ±2 st window from 96 to 64:
-    8.4 -> 6.4 ms per 2048x16000 batch (frame sweep at blk=16: frame 20 =
-    7.2, 40 = 6.4, 80 = 8.5; blk=8 loses it back on lane-thin operands,
-    7.3; frame=160/window=256 at the old blk=32 measured 148 ms and the
-    direct gather ~1400 ms).
+    waste from 31 to 15 samples, cutting the ±2 st window from 96 to 64.
 
     `window` must cover frame*max_rate + 1 + blk (`pitch_window()` computes
     it); the default 128 covers ±12 semitones at frame=40. The augmentation
@@ -204,14 +191,11 @@ def resample_pitch(x: jnp.ndarray, semitones: jnp.ndarray,
     n_frames = n // frame
     rate = 2.0 ** (semitones / 12.0)
 
-    # Operand dtype for the two MXU contractions: bf16. The MXU multiplies
-    # f32 operands at bf16 precision anyway (DEFAULT precision), so the
-    # span select is bit-identical; only the blended interpolation weights
-    # lose bits (<= 2^-9 relative, ~0.2% FS worst case — inside the same
-    # tolerance the f32 ulp of the absolute read position already costs).
-    # Measured (2048 x 16000, +-2 st): 18 -> 14 ms on-chip, because the
-    # [F, frame, window] weight generation is the VPU-bound term and bf16
-    # halves it.
+    # Operand dtype for the two contractions: bf16. The span select is
+    # exact (one-hot); only the blended interpolation weights lose bits
+    # (<= 2^-9 relative, ~0.2% FS worst case — inside the same tolerance
+    # the f32 ulp of the absolute read position already costs). bf16
+    # halves the bytes of the [F, frame, window] weight tensor.
     cdt = jnp.bfloat16
 
     # all blk-aligned window-wide spans, as shifted views (no gather)
@@ -238,14 +222,8 @@ def resample_pitch(x: jnp.ndarray, semitones: jnp.ndarray,
     # identical to the lo/hi one-hot blend (the hat is exactly 1-w at
     # k=floor(rel) and w at k=floor(rel)+1, zero elsewhere) but generated
     # in ONE subtract/abs/relu pass over the [F, frame, window] tensor —
-    # the VPU-bound term of this routine — instead of two integer
-    # comparisons plus a three-array blend. Measured on the same probe
-    # (2048 x 16000, +-2 st, 32-chained): one-hot blend 9.7 ms -> hat
-    # 8.1 ms. Measured NEGATIVES, same probe: (a) difference-identity
-    # x[a] + w*(x[a+1]-x[a]) with a single one-hot but TWO einsum
-    # consumers — 12.6 ms (XLA re-materialises the one-hot per consumer);
-    # (b) Kronecker-factored one-hot (12x8) — 41 ms (P=12/Q=8 minor dims
-    # waste 90%+ of the 128-lane VPU/MXU tiles).
+    # the elementwise-bound term of this routine — instead of two integer
+    # comparisons plus a three-array blend.
     k = jnp.arange(window, dtype=jnp.float32)
     relc = jnp.clip(rel, 0.0, float(window - 1))
     weights = jnp.maximum(
@@ -273,7 +251,7 @@ def resample_pitch_grouped(x: jnp.ndarray, grid: tuple, perm: jnp.ndarray,
 
     Same linear-interpolation math as `resample_pitch`, restructured so the
     per-clip [F, frame, window] hat-weight tensor — that routine's dominant,
-    VPU-bound term (see its design log) — is computed once PER RATE instead
+    elementwise-bound term — is computed once PER RATE instead
     of once per clip: with R=16 rates at batch 2048 the weight/selector
     generation shrinks 128x and both contractions become rate-batched
     einsums over [R, B/R, ...] with rate-shared operands. `perm` (a traced
@@ -283,16 +261,9 @@ def resample_pitch_grouped(x: jnp.ndarray, grid: tuple, perm: jnp.ndarray,
     augmentation family, lower variance than i.i.d. draws.
 
     Everything is computed in-graph from the static `grid` (no captured
-    device constants — closure-captured arrays ship in the remote-compile
-    request). Caller guarantees the fast-path shape conditions
+    device constants). Caller guarantees the fast-path shape conditions
     (B % R == 0, n % lcm(frame, blk) == 0, n_windows >= 1); `augment_batch`
     falls back to the per-clip path otherwise.
-
-    Measured (2048 x 16000, ±2 st, R=16, 16-chained, v5e-1,
-    tools/profile_config3.py): pitch-only 7.14 -> 4.60 ms/batch; the
-    augment stage 13.09 -> 9.56 ms; FULL config-3 step 16.06 ms bf16 =
-    127.5k clips/s (19.4 ms / 105.6k in round 3, which also predates the
-    one-hot-shift per-operand-precision win).
     """
     B, n = x.shape
     R = len(grid)
@@ -300,7 +271,7 @@ def resample_pitch_grouped(x: jnp.ndarray, grid: tuple, perm: jnp.ndarray,
     blk = PITCH_SPAN_BLK
     n_windows = n // blk - window // blk + 1
     n_frames = n // frame
-    cdt = jnp.bfloat16    # same MXU operand dtype as resample_pitch
+    cdt = jnp.bfloat16    # same operand dtype as resample_pitch
 
     rates = 2.0 ** (jnp.asarray(grid, jnp.float32) / 12.0)
     rates = rates[perm]                                     # [R]
@@ -367,16 +338,10 @@ def resample_pitch_rational(x: jnp.ndarray, p_grid: tuple,
 
     Rate decorrelation — why a STATIC slot->rate map is sound here where
     the grouped path needed a traced perm: the numerator is SHAPE-defining,
-    so a traced perm cannot index the grid; every mechanism that moves the
-    perm into the graph was built and measured at B=2048, n=16000
-    (tools/probe_pitch_rational.py, grouped baseline 3.4 ms/batch):
-    one-hot [R, R] matmul routing 8.2 ms (a traced perm cannot constant-
-    fold; the batch is materialized twice through the MXU at HIGHEST
-    precision), row-gather routing 9.2 ms (XLA lowers a traced 16-row
-    gather of 8 MB rows poorly on TPU), per-group lax.switch over R
-    static-rate branches 3.3 ms (no HBM routing, but each conditional
-    copies its 8 MB operand and result). The interleaved static map runs
-    at the 2.0 ms no-decorrelation floor, and it does not weaken the
+    so a traced perm cannot index the grid, and routing the batch through
+    a traced permutation (one-hot matmul, row gather or per-group
+    lax.switch) costs a full extra pass over the batch. The interleaved
+    static map needs no routing, and it does not weaken the
     statistics the perm existed to protect: (a) WITHIN a batch, every
     contiguous run of k*R slots sees each rate exactly k times, so
     slot-structured batches (the ISBL sampler's per-rule slot ranges,
@@ -387,7 +352,7 @@ def resample_pitch_rational(x: jnp.ndarray, p_grid: tuple,
     shuffles clip order per pass), so each clip's rate marginal is
     uniform over the grid without any routing here.
 
-    Same linear interpolation and bf16 MXU operand dtype as
+    Same linear interpolation and bf16 operand dtype as
     `resample_pitch` (reference parity: augment_clips.py pitch shift);
     past-the-end reads are masked to 0 identically. Caller guarantees
     B % R == 0 and n % q == 0; `augment_batch` gates on those.
@@ -402,9 +367,7 @@ def resample_pitch_rational(x: jnp.ndarray, p_grid: tuple,
     # this barrier XLA fuses whatever elementwise chain produced `x` (the
     # mix/gain pre-stage in augment_batch) into each of the R slice
     # consumers and into the final where's passthrough operand, re-running
-    # it many times: measured pre+pitch+post 8.9 ms/batch without the
-    # barrier vs 6.6 ms with it (2048 x 16000; tools/probe_pitch_rational
-    # in-chain experiment, round 4). Identity on values.
+    # it many times. Identity on values.
     x = jax.lax.optimization_barrier(x)
 
     xg = x.reshape(G, R, n)
@@ -452,16 +415,13 @@ def _next_pow2(n: int) -> int:
 
 
 def _fft_len(target: int) -> int:
-    """Smallest FAST TPU FFT length >= target: min of 2^a and 9*2^a.
+    """FFT length >= target for the RIR convolution: min of 2^a and 9*2^a.
 
-    XLA's TPU FFT cost is wildly non-monotonic in length. Measured on v5e
-    (2048 x 16000 + 1600-tap RIR; rfft+rfft+irfft per clip, ms/batch):
-    32768 -> 42.9 | 24576 (3*2^13) -> 47.8 | 20480 (5*2^12) -> 40.4 |
-    19200 -> 26.8 | 18432 (9*2^11) -> 23.4 | 18000 (2^4*3^2*5^3) -> 436(!).
-    And at 1024 x 32000: 65536 -> 44.5 | 49152 (3*2^14) -> 49.8 |
-    36864 (9*2^12) -> 37.9. Only the 9*2^a family reliably beats the next
-    pow2 (1.8x at the 1-s clip shape), so the chooser is restricted to
-    {2^a, 9*2^a}; any length >= target is mathematically equivalent.
+    Any length >= target is mathematically equivalent; FFT cost is not
+    monotonic in length, and lengths with large prime factors are slow.
+    The {2^a, 9*2^a} family keeps the padding small with only small
+    factors. Which lengths are fastest on the current device has not been
+    measured.
     """
     pow2 = 1 << (int(target) - 1).bit_length()
     nine = 9 << max(0, ((int(target) + 8) // 9 - 1).bit_length())
@@ -486,17 +446,15 @@ class AugmentParams(NamedTuple):
     # rate-quantized pitch: number of grid points (0 = continuous per-clip
     # semitone draws). When > 1 and the batch/length shapes allow, pitch
     # runs through resample_pitch_grouped — same augmentation family,
-    # measured 1.55x cheaper standalone / -3.5 ms on the config-3 chain
-    # (see that function's design log).
+    # with the weight tensor computed once per rate instead of per clip.
     pitch_grid: int = 16
     # foreground-placement quantum in samples (see _augment_pre): offsets
     # round down to this grid so the shift can skip its fine stage. Must be
     # a multiple of 128 to engage; 0/1 = exact sample placement.
     offset_quantum: int = 128
     # rational-rate pitch: quantize rates to p/64 so the resample becomes
-    # a reshape + tiny static-weight matmul per rate (resample_pitch_rational,
-    # 2.0 vs 3.4 ms/batch at 2048x16000) instead of the grouped one-hot span
-    # select. The p/64 quantum (~0.14 st) is FINER than the grouped grid's
+    # a reshape + tiny static-weight matmul per rate (resample_pitch_rational)
+    # instead of the grouped one-hot span select. The p/64 quantum (~0.14 st) is FINER than the grouped grid's
     # 0.27-st spacing at the default 16 rates. False = grouped einsum.
     pitch_rational: bool = True
 
@@ -532,8 +490,7 @@ class AugmentParams(NamedTuple):
 def _offset_aligned(n: int, params: AugmentParams) -> bool:
     """Placement quantization engaged: offsets round down to a 128-sample
     (8 ms) grid so the shift skips its in-block fine stage — two of its
-    three MXU dots (see _shift_right) — and the Pallas mix kernel can
-    shift by pure sublane roll. 8 ms placement granularity is far below
+    three dots (see _shift_right). 8 ms placement granularity is far below
     the 80 ms frame hop the detector decides on, and the mel frontend's
     own 10 ms hop already makes sub-frame placement phase-only."""
     return (params.offset_quantum > 1 and n % 128 == 0
@@ -542,9 +499,8 @@ def _offset_aligned(n: int, params: AugmentParams) -> bool:
 
 def _pre_draws(key, fg_len, n: int, params: AugmentParams):
     """Per-clip random draws of the pre-pitch stage (offset/SNR/gain).
-    Single-sourced so the vmapped chain and the fused Pallas mix kernel
-    consume bit-identical randomness. Subkey derivation shares the 9-way
-    split with _augment_post/_pitch_gate."""
+    Subkey derivation shares the 9-way split with
+    _augment_post/_pitch_gate."""
     (k_off, k_snr, k_gain, _k_pitch, _k_rir, _k_vol, k_p1, _k_p2,
      _k_p3) = jax.random.split(key, 9)
     max_offset = jnp.maximum(n - fg_len, 0)
@@ -568,42 +524,6 @@ def _augment_pre(key, fg, bg, fg_len, has_bg, params: AugmentParams):
     return jnp.where(apply_gain, mixed * 10.0 ** (gain_db / 20.0), mixed)
 
 
-def _augment_pre_fused(keys, fg, bg, fg_lens, has_bg,
-                       params: AugmentParams, *,
-                       interpret: bool = False) -> jnp.ndarray:
-    """Batched pre-stage through the fused Pallas mix kernel
-    (ops/mix_pallas.py): one HBM pass for convert+shift+mix+gain.
-
-    `fg` may be raw int16 (the kernel converts in-VMEM, halving the read)
-    or unit-scale float32. Draw/RMS/scale scalars are computed here with
-    the SAME vectorized ops the vmapped chain uses, so the result is
-    bit-identical to `vmap(_augment_pre)` (asserted in
-    tests/test_mix_pallas.py). Caller guarantees _offset_aligned and
-    n % 128 == 0.
-    """
-    from nanowakeword_tpu.ops.mix_pallas import mix_gain_pallas
-
-    B, n = fg.shape
-    offsets, snr_db, gain_db, apply_gain = jax.vmap(
-        _pre_draws, in_axes=(0, 0, None, None))(keys, fg_lens, n, params)
-
-    fg_unit = fg.astype(jnp.float32) * (1.0 / 32768.0) \
-        if jnp.issubdtype(fg.dtype, jnp.integer) else fg
-    # XLA fuses the convert into the reduce: the RMS pass reads int16
-    fg_rms = jax.vmap(_rms)(fg_unit)
-    bg_rms = jnp.maximum(jax.vmap(_rms)(bg), MIN_BG_RMS)
-    snr_linear = 10.0 ** (snr_db / 20.0)
-    scale = snr_linear * bg_rms / fg_rms
-    scaled_rms = scale * fg_rms
-    scale = jnp.where(scaled_rms < MIN_FG_RMS,
-                      scale * (MIN_FG_RMS / jnp.maximum(scaled_rms, EPS)),
-                      scale)
-    offsets = jnp.where(has_bg, offsets, 0)
-    gain = jnp.where(apply_gain, 10.0 ** (gain_db / 20.0), 1.0)
-    return mix_gain_pallas(fg, bg, offsets // 128, scale, has_bg, gain,
-                           interpret=interpret)
-
-
 def _pitch_gate(key, params: AugmentParams):
     """The per-clip pitch probability draw (k_p2 of the 9-way split)."""
     k_p2 = jax.random.split(key, 9)[7]
@@ -624,7 +544,7 @@ def _augment_post(key, mixed, rir, has_rir, params: AugmentParams):
     # RIR, probability gate (only when an impulse was provided).
     # params is STATIC: with rir_prob == 0 the FFT convolution is not even
     # traced — a jnp.where would still execute B large FFTs per batch and
-    # dominate the step (measured: ~1.5 s/step at batch 2048).
+    # dominate the step.
     if params.rir_prob > 0:
         apply_rir = jnp.logical_and(
             jax.random.uniform(k_p3, ()) < params.rir_prob, has_rir)
@@ -713,7 +633,6 @@ def augment_batch(key, fg, bg, rir, fg_lens, has_bg, has_rir,
         x = x.astype(jnp.float32)
         return x * jnp.where(jnp.max(jnp.abs(x)) > 2.0, 1.0 / 32768.0, 1.0)
 
-    fg_raw = fg                 # kernel path reads int16 directly
     fg = _to_unit(fg)
     bg = _to_unit(bg)
     rir = rir.astype(jnp.float32)
@@ -722,15 +641,7 @@ def augment_batch(key, fg, bg, rir, fg_lens, has_bg, has_rir,
     keys = jax.random.split(key, B)
 
     def _pre_stage():
-        """Mix+gain pre-stage: fused Pallas kernel on TPU backends when
-        offsets are 128-aligned (one HBM pass, int16 read), the vmapped
-        XLA chain otherwise — bit-identical outputs (test_mix_pallas)."""
-        from nanowakeword_tpu.ops.mix_pallas import mix_pallas_wanted
-        if _offset_aligned(n, params) and mix_pallas_wanted():
-            kfg = fg_raw if jnp.issubdtype(fg_raw.dtype, jnp.integer) \
-                else fg
-            return _augment_pre_fused(keys, kfg, bg, fg_lens, has_bg,
-                                      params)
+        """Mix+gain pre-stage, vmapped over the batch."""
         return jax.vmap(_augment_pre, in_axes=(0, 0, 0, 0, 0, None))(
             keys, fg, bg, fg_lens, has_bg, params)
 
@@ -766,9 +677,9 @@ def augment_batch(key, fg, bg, rir, fg_lens, has_bg, has_rir,
             return (out * INT16_MAX).astype(jnp.int16)
 
     # Generic path (continuous pitch / pitch off / odd shapes): the same
-    # pre -> pitch -> post composition as _augment_one, decomposed so the
-    # pre-stage can ride the fused mix kernel. Bit-identical to the
-    # single-clip chain — the stage halves share its key derivation.
+    # pre -> pitch -> post composition as _augment_one, decomposed into
+    # stages. Bit-identical to the single-clip chain — the stage halves
+    # share its key derivation.
     mixed = _pre_stage()
     if params.pitch_prob > 0:
         window = pitch_window(max(abs(params.min_pitch),

@@ -1,11 +1,11 @@
-"""TPU-native log-mel frontend (hop-DFT formulation, N_FFT = 480).
+"""Log-mel frontend (hop-DFT formulation, N_FFT = 480).
 
 This is the acoustic core of nanowakeword-tpu. The reference implementation
 (`/root/reference/nanowakeword/data/AudioFeatures.py:124-153`) delegates the
 mel-spectrogram to an opaque ONNX model with the contract: 16 kHz int16 PCM in,
 32 mel bins out at ~100 frames/sec, post-transformed with ``spec/10 + 2``.
 That contract (bin count, frame rate, scale) is preserved; the transform
-inside is our own design, chosen for the MXU:
+inside is our own design, built from matrix products:
 
 * **Hop-granular DFT** — the analysis window (480) is exactly 3 hops (160),
   and with ``N_FFT == 480`` the window-length DFT factorizes over hops:
@@ -13,7 +13,7 @@ inside is our own design, chosen for the MXU:
       X(t, f) = sum_k  e^{-i 2pi k f / 3} * S(t + k, f),      k = 0..2
       S(r, f) = sum_tau x[160 r + tau] e^{-i 2pi tau f / 480}
 
-  so the MXU computes ONE pair of ``[160, n_bins]`` matmuls per hop ROW
+  so there is ONE pair of ``[160, n_bins]`` matmuls per hop ROW
   (every row is reused by the 3 frames that overlap it), instead of one
   ``[480, n_bins]`` pair per FRAME — 3x fewer DFT FLOPs than the frame-
   matrix route. The phase combine is cheap elementwise work.
@@ -24,8 +24,8 @@ inside is our own design, chosen for the MXU:
 
   applied after the phase combine; no window folding into bases needed.
 * **Bin pruning** — only the spectral bins the mel filterbank reads are
-  computed: with fmax = 3800 Hz that is bins 0..~116 of 241, padded to one
-  128-wide MXU lane tile (every dropped bin has zero filter weight; the two
+  computed: with fmax = 3800 Hz that is bins 0..~116 of 241, padded to
+  128 (every dropped bin has zero filter weight; the two
   edge lanes whose +-1 taps fall outside the tile are bins the filterbank
   also never reads).
 * **Exact streaming == batch** — the frontend left-pads every clip with
@@ -39,7 +39,7 @@ inside is our own design, chosen for the MXU:
 History: the original design used N_FFT = 512 with the window and int16
 scale folded into per-hop slabs of the frame basis (3 shifted [160, 128]
 matmul pairs per frame; see git history). The hop-DFT factorization needs
-only 1 pair per row — measured kernel comparison in ops/mel_pallas.py.
+only 1 pair per row.
 
 Output contract:
     mel_frontend(x[n]) -> [n // HOP, N_MELS]   (for n a multiple of HOP)
@@ -61,7 +61,7 @@ SAMPLE_RATE = 16000
 HOP = 160                   # 10 ms
 WINDOW = 480                # 30 ms = 3 hops (framing-by-reshape invariant)
 N_FFT = 480                 # == WINDOW: enables the hop-DFT factorization
-N_BINS = 128                # computed spectral bins (one MXU lane tile)
+N_BINS = 128                # computed spectral bins (>= the 117 the filterbank reads)
 N_MELS = 32
 FMIN = 60.0
 FMAX = 3800.0

@@ -1,10 +1,10 @@
 """Device mesh construction and sharding rules.
 
 The reference has NO distributed training (SURVEY.md §2: no DDP, no
-NCCL/MPI anywhere) — multi-chip scaling is a new capability of the TPU
-rebuild. Strategy: a 2-D ``(data, model)`` mesh; batches shard over ``data``,
-large parameter matrices optionally shard over ``model`` (tensor parallelism),
-everything else replicates. XLA inserts the all-reduces over ICI.
+NCCL/MPI anywhere) — multi-device scaling is a new capability here.
+Strategy: a 2-D ``(data, model)`` mesh; batches shard over ``data``, large
+parameter matrices optionally shard over ``model`` (tensor parallelism),
+everything else replicates. XLA inserts the all-reduces (NCCL on GPUs).
 """
 
 from __future__ import annotations

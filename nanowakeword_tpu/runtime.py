@@ -1,6 +1,6 @@
 """ctypes bindings for the native audio runtime (native/nww_runtime.cc).
 
-The TPU computes; this C++ library handles the real-time host plumbing
+The accelerator computes; this C++ library handles the real-time host plumbing
 around it: an SPSC int16 ring buffer for capture threads, 16-bit PCM WAV
 decode, and 1280-sample chunk framing with remainder carry. Builds on first
 use with the system compiler; every entry point has a pure-numpy fallback so

@@ -121,11 +121,11 @@ def put_cached_on_mesh(data: CachedData, mesh) -> CachedData:
                       quotas=data.quotas, replace=data.replace)
 
 
-# Pool size above which "auto" sampling switches to approx_max_k. Measured
-# on v5e: exact top_k costs 220/366/1040 us per rule at pools of
-# 50k/160k/640k (sort-dominated, superlinear), while approx_max_k holds at
-# 185/186/235 us — 12x cheaper on the top-k term at 640k. Below this size
-# the exact sort is ~35 us over approx; not worth the semantics change.
+# Pool size above which "auto" sampling switches to approx_max_k. Exact
+# top_k is sort-based and grows superlinearly with the pool; approx_max_k
+# is a partial reduction on backends that implement one. On the GPU, XLA
+# lowers approx_max_k to an exact top-k, so there both choices give the
+# same samples and the option only matters elsewhere.
 APPROX_SAMPLING_MIN_POOL = 131_072
 
 
@@ -135,7 +135,7 @@ def _sample_rule(key, pool, hardness, quota: int, with_replacement: bool,
 
     ``sampling``: "exact" keeps the reference's multinomial-without-
     replacement distribution bit-for-bit (Gumbel top-k, sort-based);
-    "approx" uses `jax.lax.approx_max_k` (TPU-tiled, default 0.95 recall),
+    "approx" uses `jax.lax.approx_max_k` (default 0.95 recall target),
     a statistically indistinguishable weighted sample whose cost stays
     near-flat in pool size; "auto" picks exact below
     APPROX_SAMPLING_MIN_POOL and approx above it.

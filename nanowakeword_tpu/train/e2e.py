@@ -19,7 +19,7 @@ from __future__ import annotations
 import random
 from typing import Dict, List, Optional, Tuple
 
-import flax.linen as nn
+from nanowakeword_tpu import nn
 import jax
 import jax.numpy as jnp
 import numpy as np

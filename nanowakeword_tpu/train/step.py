@@ -40,9 +40,8 @@ class TrainState(NamedTuple):
 
 
 class StepMetrics(NamedTuple):
-    """Step metrics, PACKED as one device vector so the host synchronises
-    with a single value fetch per step (each separate np.asarray costs a
-    full round trip on relayed backends):
+    """Step metrics, PACKED as one device vector so the host reads them
+    with a single device-to-host transfer per step:
 
         packed = [loss, grad_norm, per_example_bce (B), logits (B)]
     """
@@ -123,7 +122,7 @@ def resolve_compute_dtype(compute_dtype) -> Optional[Any]:
         return None
     raise ValueError(
         "training.compute_dtype must be 'float32' or 'bfloat16', got "
-        f"{compute_dtype!r} (f16/fp16 is not a TPU training dtype; use "
+        f"{compute_dtype!r} (f16/fp16 is not supported; use "
         "bfloat16)")
 
 
@@ -154,7 +153,7 @@ def make_train_step(module, tx: optax.GradientTransformation, *,
     """Build the (state, features, labels) -> (state, metrics) step function.
 
     compute_dtype="bfloat16" runs the forward/backward in bf16 (mixed
-    precision, the idiomatic TPU training mode): master params, optimizer
+    precision): master params, optimizer
     moments, loss, and gradients stay float32; params/features are cast to
     bf16 around `module.apply` only. BatchNorm running stats stay float32
     end to end: flax computes batch statistics in f32 regardless of input
@@ -162,8 +161,6 @@ def make_train_step(module, tx: optax.GradientTransformation, *,
     (verified bit-identical) while keeping the EMA update full-precision —
     a bf16-rounded running mean would erase any per-step increment below
     ~0.2% relative and freeze the stats off the true batch statistics.
-    Measured on the config-3 CRNN (batch 2048): step 8.7 -> 5.4 ms; the
-    full augment+train chain 22.6 -> 19.4 ms (90.5k -> 105.6k clips/s).
     """
     loss_fn_name = loss_function.lower()
     cdt = resolve_compute_dtype(compute_dtype)

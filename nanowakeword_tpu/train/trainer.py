@@ -5,7 +5,7 @@ Parity target: `/root/reference/nanowakeword/train/train_model.py` — the
 `Trainer` class (`:60`), `validate` (`:147`), `auto_train` (`:240`) and
 `train_model` (`:346`), with the same config-key surface.
 
-TPU-native structure: the per-step math is one jitted XLA computation
+Structure: the per-step math is one jitted XLA computation
 (train/step.py); the Python loop only pumps batches, folds the returned
 per-example BCE into the host-side hardness array (the ISBL loop), and
 handles bookkeeping. RNG state is a single JAX key checkpointed alongside

@@ -36,6 +36,7 @@ from nanowakeword_tpu.export.custom_export import (auto_gen_name,
 from nanowakeword_tpu.models.model import Model
 from nanowakeword_tpu.train.trainer import Trainer
 from nanowakeword_tpu.utils.audio_io import verify_and_process_directory
+from nanowakeword_tpu.utils.compile_cache import enable_compile_cache
 from nanowakeword_tpu.utils.dynamic_table import DynamicTable
 from nanowakeword_tpu.utils.journal import update_training_journal
 from nanowakeword_tpu.utils.logger import (print_banner, print_error,
@@ -47,7 +48,7 @@ SEED = 10
 
 def _build_parser():
     parser = argparse.ArgumentParser(
-        description="nanowakeword-tpu: TPU-native wake word training "
+        description="nanowakeword-tpu: wake word training "
                     "framework.",
         formatter_class=argparse.RawTextHelpFormatter)
     parser.add_argument("-c", "--config_path", type=str, required=True,
@@ -247,6 +248,7 @@ def _check_weights_dtype(dist_cfg) -> None:
 def train(cli_args=None):
     args = _build_parser().parse_args(cli_args)
     print_banner()
+    enable_compile_cache()
 
     with open(args.config_path, "r", encoding="utf-8") as f:
         user_config = yaml.load(f.read(), yaml.Loader)

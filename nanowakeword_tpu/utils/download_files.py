@@ -21,7 +21,7 @@ def download_file(url: str, target_directory: str,
     local_path = os.path.join(target_directory, url.split("/")[-1])
     tmp_path = local_path + ".part"
 
-    req = urllib.request.Request(url, headers={"User-Agent": "nww-tpu"})
+    req = urllib.request.Request(url, headers={"User-Agent": "nanowakeword"})
     with urllib.request.urlopen(req) as resp:
         total = file_size or int(resp.headers.get("Content-Length") or 0)
         done = 0

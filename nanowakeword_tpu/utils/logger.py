@@ -25,7 +25,7 @@ BANNER = r"""
  | \| |__ _ _ _  ___  \ \    / /_ _| |_____  \ \    / /__ _ _ __| |
  | .` / _` | ' \/ _ \  \ \/\/ / _` | / / -_)  \ \/\/ / _ \ '_/ _` |
  |_|\_\__,_|_||_\___/   \_/\_/\__,_|_\_\___|   \_/\_/\___/_| \__,_|
-                               TPU-native  |  jax / XLA / pallas
+                                        jax  |  XLA
 """
 
 

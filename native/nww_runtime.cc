@@ -1,5 +1,5 @@
 // nanowakeword-tpu native runtime: the host-side audio plumbing around the
-// TPU compute path.
+// accelerator compute path.
 //
 // The reference framework is pure Python (SURVEY.md §2: zero native code);
 // its real-time path allocates per-chunk Python lists and deques

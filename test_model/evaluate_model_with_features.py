@@ -29,7 +29,7 @@ from nanowakeword_tpu.interpreter.nanointerpreter import \
 def _load_scorer(model_path):
     """-> (run_batch fn, feature_length). Accepts `.nww` artifacts and
     exported `.onnx` graphs (the reference script's model format; scored
-    here through the TPU ONNX runtime, export/onnx_jax.py)."""
+    here through the JAX ONNX runtime, export/onnx_jax.py)."""
     import jax
     import jax.numpy as jnp
 

@@ -89,7 +89,7 @@ def test_swa_averaging():
 def test_custom_model_loading(tmp_path):
     src = tmp_path / "my_arch.py"
     src.write_text(
-        "import flax.linen as nn\n"
+        "from nanowakeword_tpu import nn\n"
         "class MyNet(nn.Module):\n"
         "    embedding_dim: int\n"
         "    dropout_prob: float = 0.0\n"

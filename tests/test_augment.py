@@ -73,7 +73,7 @@ class TestPitch:
 
     def test_mxu_path_matches_numpy_interpolation(self):
         """The span-matmul formulation == explicit linear interpolation
-        (up to the bf16 operand rounding the TPU MXU applies anyway)."""
+        (up to the bf16 operand rounding of the weights)."""
         rng = np.random.default_rng(3)
         x = rng.normal(size=3200).astype(np.float32) * 16000
         for st in (-4.0, -0.5, 1.7, 4.0):
@@ -86,8 +86,7 @@ class TestPitch:
             frac = (pos - lo).astype(np.float32)
             ref = x[lo] * (1 - frac) + x[np.clip(lo + 1, 0, 3199)] * frac
             ref = np.where(pos <= 3199, ref, 0.0)
-            # the interpolation weights round at bf16 (2^-9 relative — the
-            # same precision the TPU MXU multiplies f32 operands at), so
+            # the interpolation weights round at bf16 (2^-9 relative), so
             # the error bound is the adjacent-sample delta x 2^-9; on this
             # white-noise signal deltas reach ~2x the peak amplitude
             atol = float(np.abs(x).max()) * 2.0 ** -8
@@ -545,3 +544,54 @@ class TestSpecAugment:
         out = np.asarray(A.spec_augment(jax.random.PRNGKey(0), mel))
         assert out.shape == mel.shape
         assert (out == np.asarray(mel).min()).sum() > 0  # something masked
+
+
+class TestPreStage:
+    """The 128-aligned shift / scale / mix / gain pre-stage against a
+    numpy reference computed from the same per-clip draws."""
+
+    @staticmethod
+    def _inputs(B, n, seed):
+        rng = np.random.default_rng(seed)
+        fg = (rng.integers(-16000, 16000, (B, n)) / 32768.0).astype(
+            np.float32)
+        bg = (rng.integers(-3000, 3000, (B, n)) / 32768.0).astype(np.float32)
+        fg_lens = rng.integers(n // 2, n + 1, B).astype(np.int32)
+        has_bg = rng.random(B) < 0.7
+        has_bg[:2] = [True, False]
+        return fg, bg, fg_lens, has_bg
+
+    def _numpy_pre(self, key, fg, bg, fg_len, has_bg, params):
+        n = fg.shape[-1]
+        offset, snr_db, gain_db, apply_gain = (
+            np.asarray(v) for v in A._pre_draws(key, fg_len, n, params))
+        fg64, bg64 = fg.astype(np.float64), bg.astype(np.float64)
+        fg_rms = np.sqrt(np.mean(fg64 ** 2) + A.EPS)
+        bg_rms = max(np.sqrt(np.mean(bg64 ** 2) + A.EPS), A.MIN_BG_RMS)
+        scale = 10.0 ** (snr_db / 20.0) * bg_rms / fg_rms
+        if scale * fg_rms < A.MIN_FG_RMS:
+            scale *= A.MIN_FG_RMS / max(scale * fg_rms, A.EPS)
+        off = int(offset) if has_bg else 0
+        shifted = np.zeros(n)
+        shifted[off:] = fg64[:n - off]
+        out = bg64 + shifted * scale if has_bg else shifted
+        return out * (10.0 ** (gain_db / 20.0) if apply_gain else 1.0), off
+
+    @pytest.mark.parametrize("n", [1280, 2560])
+    def test_matches_numpy_reference(self, n):
+        B = 8
+        fg, bg, fg_lens, has_bg = self._inputs(B, n, seed=n)
+        params = A.AugmentParams.from_settings({"rir_prob": 0.0})
+        assert A._offset_aligned(n, params)
+        keys = jax.random.split(jax.random.PRNGKey(5), B)
+        got = np.asarray(jax.vmap(
+            A._augment_pre, in_axes=(0, 0, 0, 0, 0, None))(
+                keys, jnp.asarray(fg), jnp.asarray(bg), jnp.asarray(fg_lens),
+                jnp.asarray(has_bg), params))
+        for b in range(B):
+            want, off = self._numpy_pre(keys[b], fg[b], bg[b], fg_lens[b],
+                                        has_bg[b], params)
+            assert off % 128 == 0
+            # float32 against float64: a few ulp of the clip's peak
+            tol = 2.0 ** -20 * max(np.abs(want).max(), 1.0)
+            assert np.abs(got[b] - want).max() <= tol, b

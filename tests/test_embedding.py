@@ -34,7 +34,7 @@ class TestGeometry:
 
     @pytest.mark.parametrize("T", [100, 164, 200])
     def test_full_sequence_equals_windowed(self, encoder, rng, T):
-        """The TPU-first redesign's core claim: one conv pass over the whole
+        """The redesign's core claim: one conv pass over the whole
         mel sequence == the reference's explicit 76/8 windowing, exactly."""
         enc, params = encoder
         mel = jnp.asarray(rng.normal(size=(1, T, 32)).astype(np.float32))

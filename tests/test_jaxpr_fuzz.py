@@ -16,7 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import flax.linen as nn
+from nanowakeword_tpu import nn
 
 from nanowakeword_tpu.export import onnx_eval
 from nanowakeword_tpu.export.jaxpr_onnx import build_onnx_from_module

@@ -147,3 +147,77 @@ class TestNumerics:
         a = np.asarray(M.mel_frontend(x, compute_dtype=jnp.float32))
         b = np.asarray(M.mel_frontend(x, compute_dtype=jnp.bfloat16))
         assert np.abs(a - b).mean() < 0.05
+
+
+class TestBulkPathAgainstReference:
+    """The bulk (bf16) frontend at the shapes the benchmark and
+    extraction run, against the float64 DFT oracle. Tolerance: bf16 rounding
+    of rows and bases (2^-9 relative) in the log10 domain — a few 1e-3 on
+    loud bins, more on bins near the MEL_EPS floor."""
+
+    @pytest.mark.parametrize("shape", [
+        (1, 16000),    # 100 frames
+        (3, 32000),    # 200 frames
+        (2, 64000),    # 400 frames
+        (5, 12345),    # non-HOP-multiple length, odd batch
+    ])
+    def test_matches_reference(self, rng, shape):
+        x = rng.integers(-20000, 20000, shape).astype(np.float32)
+        out = np.asarray(M.mel_frontend(jnp.asarray(x),
+                                        compute_dtype=jnp.bfloat16))
+        assert out.shape == (shape[0], M.n_mel_frames(shape[1]), M.N_MELS)
+        ref = M.mel_frontend_reference(x)
+        d = np.abs(out[:, :ref.shape[1]] - ref)
+        assert d.max() < 0.1 and d.mean() < 5e-3, (d.max(), d.mean())
+
+    def test_frames_across_128_frame_boundaries(self, rng):
+        """Frames straddling multiples of 128 (the bin tile width) agree
+        with the reference like every other frame."""
+        x = rng.integers(-20000, 20000, (2, 48000)).astype(np.float32)
+        out = np.asarray(M.mel_frontend(jnp.asarray(x)))
+        ref = M.mel_frontend_reference(x)
+        for boundary in (128, 256):
+            seg = slice(boundary - 3, boundary + 3)
+            assert np.abs(out[:, seg] - ref[:, seg]).mean() < 5e-3
+
+    def test_int16_input_matches_float(self, rng):
+        """int16 PCM (the product's native dtype) gives bit-identical output
+        to the same values fed as float32: int16 -> f32 is exact."""
+        x = rng.integers(-20000, 20000, (4, 16000)).astype(np.int16)
+        a = np.asarray(M.mel_frontend(jnp.asarray(x)))
+        b = np.asarray(M.mel_frontend(jnp.asarray(x.astype(np.float32))))
+        np.testing.assert_array_equal(a, b)
+
+    def test_bf16_input(self, rng):
+        """bf16 audio is read at its own (rounded) values."""
+        x = rng.integers(-20000, 20000, (2, 16000)).astype(np.float32)
+        xb = jnp.asarray(x, jnp.bfloat16)
+        out = np.asarray(M.mel_frontend(xb))
+        ref = M.mel_frontend_reference(np.asarray(xb, np.float32))
+        assert np.abs(out - ref).mean() < 5e-3
+
+    def test_1d_input_keeps_rank(self, rng):
+        x = rng.integers(-20000, 20000, 16000).astype(np.float32)
+        out = np.asarray(M.mel_frontend(jnp.asarray(x)))
+        assert out.shape == (100, M.N_MELS)
+        np.testing.assert_array_equal(
+            out, np.asarray(M.mel_frontend(jnp.asarray(x[None])))[0])
+
+    def test_batch_size_invariance(self, rng):
+        """Each clip's frames do not depend on what else is in the batch."""
+        x = rng.integers(-20000, 20000, (8, 16000)).astype(np.float32)
+        fn = jax.jit(M.mel_frontend)
+        whole = np.asarray(fn(jnp.asarray(x)))
+        for i in (0, 5):
+            np.testing.assert_allclose(
+                whole[i], np.asarray(fn(jnp.asarray(x[i:i + 1])))[0],
+                atol=1e-5)
+
+    def test_bf16_output_equals_cast_of_f32(self, rng):
+        """The benchmark's bf16-out mel is the f32 output rounded once."""
+        import bench
+        x = jnp.asarray(rng.integers(-20000, 20000, (4, 16000)), jnp.int16)
+        b16 = np.asarray(jax.jit(bench._mel_bf16)(x))
+        f32 = np.asarray(jax.jit(M.mel_frontend)(x))
+        assert b16.dtype == np.dtype(jnp.bfloat16)
+        np.testing.assert_array_equal(b16, f32.astype(jnp.bfloat16))

@@ -359,7 +359,7 @@ def test_dynamic_batch_scores_match_per_row(model_type):
 
 
 CUSTOM_SRC = """
-import flax.linen as nn
+from nanowakeword_tpu import nn
 import jax.numpy as jnp
 
 class MyNet(nn.Module):
@@ -422,7 +422,7 @@ class TestCustomModuleExport:
     def test_unsupported_primitive_raises_cleanly(self, tmp_path):
         src = tmp_path / "weird.py"
         src.write_text(
-            "import flax.linen as nn\nimport jax.numpy as jnp\n"
+            "from nanowakeword_tpu import nn\nimport jax.numpy as jnp\n"
             "class Weird(nn.Module):\n"
             "    embedding_dim: int\n"
             "    @nn.compact\n"

@@ -5,7 +5,7 @@ each; this sweep drives the exporter across a seeded random sample of the
 CONFIG SPACE — layer widths, depths, activations, per-family knobs, and
 batch sizes — asserting the exported graph scores match the live Flax model
 through the bundled numpy evaluator (and for a sample of cases through the
-TPU ONNX runtime). Mirrors the reference's "any config exports" contract
+JAX ONNX runtime). Mirrors the reference's "any config exports" contract
 (`/root/reference/nanowakeword/_export/onnx.py:26-88`) the way a fuzzer
 would, so lowering bugs that only bite at odd widths (e.g. non-multiple-of-
 head d_model splits, 1-block recurrences, widened TCN stacks) surface here.

@@ -1,4 +1,4 @@
-"""TPU-native ONNX runtime (export/onnx_jax.py): jit-compiled graphs score
+"""JAX ONNX runtime (export/onnx_jax.py): jit-compiled graphs score
 identically to the live Flax model and the numpy evaluator, and
 NanoInterpreter loads `.onnx` files directly (the reference's model format,
 nanointerpreter.py:873-877)."""

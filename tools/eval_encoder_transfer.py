@@ -40,7 +40,7 @@ def main() -> None:
     p.add_argument("--out", default=None, help="write the report JSON here")
     args = p.parse_args()
 
-    from flax import serialization
+    from nanowakeword_tpu import serialization
 
     from nanowakeword_tpu.assets import speech_encoder_asset_path
     from nanowakeword_tpu.train.pretrain_encoder import (

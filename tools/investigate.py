@@ -15,8 +15,8 @@ import sys
 def main():
     print(f"python    {sys.version.split()[0]}  ({platform.platform()})")
     print(f"cpus      {os.cpu_count()}")
-    for mod in ("jax", "jaxlib", "flax", "optax", "numpy", "scipy", "yaml",
-                "websockets"):
+    for mod in ("jax", "jaxlib", "optax", "numpy", "scipy", "msgpack",
+                "yaml", "websockets"):
         try:
             m = importlib.import_module(mod)
             print(f"{mod:<9} {getattr(m, '__version__', '?')}")

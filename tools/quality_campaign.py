@@ -996,7 +996,7 @@ def main():
     elif args.stage == "report":
         stage_report()
     else:
-        # Separate processes per stage: pipeline wants the TPU backend,
+        # Separate processes per stage: pipeline runs on the accelerator,
         # evaluate forces CPU; jax backends are process-global.
         me = [sys.executable, __file__]
         for sub in (["prep"], ["pipeline"], ["evaluate"],
